@@ -3,13 +3,13 @@
 // The reference links OpenFst for its decode path (CRF_LatticeBuilder /
 // CRFFstDecode -- SURVEY.md §2.1 L0/L6); this is the from-scratch native
 // equivalent for the host-side lexicon/LM work, exposed through a plain C
-// ABI consumed via ctypes (asr_craft_tpu/decode/fst_native.py).  Semantics
-// mirror the Python reference implementation in asr_craft_tpu/decode/fst.py
+// ABI consumed via ctypes (asr_craft/decode/fst_native.py).  Semantics
+// mirror the Python reference implementation in asr_craft/decode/fst.py
 // exactly (tropical weights, label 0 = epsilon, B must be input-eps-free,
 // A output-epsilon arcs advance A alone); equivalence is enforced by
-// randomized tests (tests/unit/test_fst_native.py).
+// randomized tests (tests/unit/test_native.py).
 //
-// Build: make -C native   (g++ -O3 -shared -fPIC)
+// Built on first use by asr_craft/utils/native_build.py.
 
 #include <algorithm>
 #include <cstdint>
@@ -209,7 +209,7 @@ int32_t craft_shortest_path(
 // through the phone-input search graph G = lexicon [o LM], Viterbi
 // recombination per token, threshold/max-active pruning per frame.  The
 // frame-run collapser is implicit (G advances only on phone change).
-// Twin of asr_craft_tpu/decode/otf.py (the correctness oracle).
+// Twin of asr_craft/decode/otf.py (the correctness oracle).
 //
 // state: (T, L) float64 row-major; trans: (L, L) or (T, L, L) when
 // trans_frame_dep != 0.  beam_threshold < 0 / max_active <= 0 disable.
@@ -342,7 +342,7 @@ int32_t craft_otf_decode(
 // bigram LMs).  No composed search graph is ever built -- the trie x
 // history product (~1e8 pairs at 5k words x bigram) never exists; memory
 // is bounded by the live beam.  Twin of
-// asr_craft_tpu/decode/otf.py:otf_decode_words_dynamic (the oracle).
+// asr_craft/decode/otf.py:otf_decode_words_dynamic (the oracle).
 // lm_ns == 0 disables the LM.  Returns 0 ok, 2 no hypothesis, 3 word
 // buffer too small.
 int32_t craft_otf_decode_dynamic(

@@ -3,10 +3,10 @@
 //
 // The reference's data path is QuickNet's C++ pfile stream classes
 // (QN_InFtrStream_PFile -- SURVEY.md §2.1 L0); this is the native fast path
-// behind asr_craft_tpu/data/pfile.py (pure-Python fallback), exposed via a
+// behind asr_craft/data/pfile.py (pure-Python fallback), exposed via a
 // C ABI for ctypes.  Format notes in the Python module.
 //
-// Build: make -C native
+// Built on first use by asr_craft/utils/native_build.py.
 
 #include <cstdint>
 #include <cstdio>

@@ -42,29 +42,24 @@ def main(argv=None):
     p.add_argument("--decode_only", default=None,
                    help="skip training: load this scrf_weights.npz, decode "
                         "the (seeded, deterministic) corpus, report PER — "
-                        "the same-weights cross-backend parity probe")
-    p.add_argument("--kernel_backend", choices=["auto", "pallas", "xla"],
-                   default="auto")
+                        "the same-weights parity probe")
     args = p.parse_args(argv)
 
     import os
     if args.platform:
         import jax
         jax.config.update("jax_platforms", args.platform)
-    if args.kernel_backend != "auto":
-        from asr_craft_tpu import kernels
-        kernels.set_backend(args.kernel_backend)
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    from asr_craft_tpu import data
-    from asr_craft_tpu.decode.scorer import ErrorRateScorer, score_batch
-    from asr_craft_tpu.models import weights as weights_mod
-    from asr_craft_tpu.models.segmental import (SegCrfConfig,
-                                                scrf_frame_labels, scrf_loss,
-                                                scrf_loss_fused)
-    from asr_craft_tpu.utils.logging import MetricsLogger
+    from asr_craft import data
+    from asr_craft.decode.scorer import ErrorRateScorer, score_batch
+    from asr_craft.models import weights as weights_mod
+    from asr_craft.models.segmental import (SegCrfConfig,
+                                            scrf_frame_labels, scrf_loss,
+                                            scrf_loss_fused)
+    from asr_craft.utils.logging import MetricsLogger
 
     os.makedirs(args.out_dir, exist_ok=True)
     logger = MetricsLogger(os.path.join(args.out_dir, "metrics.jsonl"))

@@ -4,7 +4,7 @@ CRF training with lattice-sharded decode.
 Scale knobs: 46 phones x 3 states, wide windows, large batches; the data
 loader shards utterances by host (shard_id = process_index) and the train
 step is data-parallel over all global devices with XLA gradient all-reduce
-over ICI/DCN (asr_craft_tpu.parallel).
+over ICI/DCN (asr_craft.parallel).
 
 Multi-host launch (one command per host):
 
@@ -14,10 +14,10 @@ Multi-host launch (one command per host):
 Single-host it runs data-parallel over the local devices.  Time-sharded
 ("lattice-sharded") decode is a CLI feature:
 
-    python -m asr_craft_tpu.cli.decode ... --time_shard 8 \
+    python -m asr_craft.cli.decode ... --time_shard 8 \
         [--shard_beam_labels 12]
 
-(asr_craft_tpu.parallel.timeshard.sharded_decode; exact vs unsharded,
+(asr_craft.parallel.timeshard.sharded_decode; exact vs unsharded,
 or vs the survivor-masked lattice when pruned — the regime where it wins
 wall-clock: 3.1x at T=16384, K=12.  tests/e2e/test_cli_timeshard.py.)
 
@@ -57,7 +57,7 @@ TRAIN_ARGS = [
 
 
 def main(extra=()):
-    from asr_craft_tpu.cli.train import main as train_main
+    from asr_craft.cli.train import main as train_main
     train_main(TRAIN_ARGS + list(extra))
 
 

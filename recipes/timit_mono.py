@@ -37,8 +37,8 @@ DECODE_ARGS = [
 
 
 def main(extra=()):
-    from asr_craft_tpu.cli.train import main as train_main
-    from asr_craft_tpu.cli.decode import main as decode_main
+    from asr_craft.cli.train import main as train_main
+    from asr_craft.cli.decode import main as decode_main
     extra = list(extra)
     args = [a for a in TRAIN_ARGS]
     if any(x.startswith("--ftr1_file") for x in extra):

@@ -35,8 +35,8 @@ DECODE_ARGS = [
 
 
 def main(extra=()):
-    from asr_craft_tpu.cli.train import main as train_main
-    from asr_craft_tpu.cli.decode import main as decode_main
+    from asr_craft.cli.train import main as train_main
+    from asr_craft.cli.decode import main as decode_main
     train_main(TRAIN_ARGS + list(extra))
     decode_main(DECODE_ARGS + list(extra))
 

@@ -23,10 +23,10 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from asr_craft_tpu import data
-    from asr_craft_tpu.models.crf import CrfConfig, crf_loss
-    from asr_craft_tpu.parallel import (batch_shardings, data_shard_info,
-                                        initialize_distributed, make_mesh)
+    from asr_craft import data
+    from asr_craft.models.crf import CrfConfig, crf_loss
+    from asr_craft.parallel import (batch_shardings, data_shard_info,
+                                    initialize_distributed, make_mesh)
 
     initialize_distributed()
     assert jax.process_count() == 2, jax.process_count()

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from asr_craft_tpu.models.crf import CrfConfig, crf_loss
-from asr_craft_tpu.parallel import (batch_shardings, make_batch_put,
-                                    make_mesh, replicate_tree)
-from asr_craft_tpu.train import TrainConfig, make_train_step
+from asr_craft.models.crf import CrfConfig, crf_loss
+from asr_craft.parallel import (batch_shardings, make_batch_put,
+                                make_mesh, replicate_tree)
+from asr_craft.train import TrainConfig, make_train_step
 
 
 def _batch(rng, cfg, B, T):

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asr_craft_tpu import ops
-from asr_craft_tpu.parallel.timeshard import (sharded_log_partition,
-                                              sharded_viterbi, time_mesh)
+from asr_craft import ops
+from asr_craft.parallel.timeshard import (sharded_log_partition,
+                                          sharded_viterbi, time_mesh)
 
 
 def _problem(rng, B, T, L):
@@ -77,9 +77,9 @@ def test_2d_mesh_dp_plus_timeshard(rng):
     logZ on the time axis coexist (SURVEY.md §5 mesh design)."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from asr_craft_tpu.models.crf import CrfConfig, crf_loss
-    from asr_craft_tpu.parallel import replicate_tree
-    from asr_craft_tpu.parallel.mesh import make_mesh_2d
+    from asr_craft.models.crf import CrfConfig, crf_loss
+    from asr_craft.parallel import replicate_tree
+    from asr_craft.parallel.mesh import make_mesh_2d
 
     mesh = make_mesh_2d(4, 2)
     cfg = CrfConfig(num_labels=4, feat_dim=5)
@@ -102,8 +102,8 @@ def test_2d_mesh_dp_plus_timeshard(rng):
     np.testing.assert_allclose(float(got_loss), float(ref_loss), rtol=1e-6)
 
     # time-sharded logZ over the same mesh's "time" axis
-    from asr_craft_tpu.parallel.timeshard import sharded_log_partition
-    from asr_craft_tpu.models.crf import potentials
+    from asr_craft.parallel.timeshard import sharded_log_partition
+    from asr_craft.models.crf import potentials
     state, trans = potentials(cfg, params, feats)
     logZ_sh = sharded_log_partition(state, trans, lengths, mesh)
     logZ_ref = ops.log_partition_batch(state, trans, lengths)
@@ -116,9 +116,9 @@ def test_pruned_sharded_equals_masked_unsharded(rng):
     the survivor-masked lattice (identical label sets by construction),
     and K=L == exact (VERDICT r3 next #4a/d)."""
     import jax
-    from asr_craft_tpu.ops.semiring import NEG_INF
-    from asr_craft_tpu.parallel.timeshard import (sharded_viterbi,
-                                                  survivor_mask, time_mesh)
+    from asr_craft.ops.semiring import NEG_INF
+    from asr_craft.parallel.timeshard import (sharded_viterbi,
+                                              survivor_mask, time_mesh)
 
     B, T, L, K = 3, 64, 12, 5
     mesh = time_mesh()

@@ -9,11 +9,11 @@ generous.
 import jax.numpy as jnp
 import numpy as np
 
-from asr_craft_tpu import data
-from asr_craft_tpu.decode.scorer import ErrorRateScorer, score_batch
-from asr_craft_tpu.models.crf import CrfConfig, decode
-from asr_craft_tpu.train import TrainConfig, Trainer
-from asr_craft_tpu.utils.logging import MetricsLogger
+from asr_craft import data
+from asr_craft.decode.scorer import ErrorRateScorer, score_batch
+from asr_craft.models.crf import CrfConfig, decode
+from asr_craft.train import TrainConfig, Trainer
+from asr_craft.utils.logging import MetricsLogger
 
 
 def _trained_setup(L=6, n=40):

@@ -23,7 +23,7 @@ def _run(mod, *args):
 def test_cli_train_and_decode(tmp_path):
     out_dir = str(tmp_path / "run")
     stdout = _run(
-        "asr_craft_tpu.cli.train",
+        "asr_craft.cli.train",
         "--synthetic_utts", "30", "--synthetic_noise", "0.3",
         "--crf_label_size", "6", "--crf_epochs", "3", "--crf_lr", "1.0",
         "--batch_size", "8", "--bucket_sizes", "256",
@@ -35,7 +35,7 @@ def test_cli_train_and_decode(tmp_path):
     assert os.path.exists(os.path.join(out_dir, "metrics.jsonl"))
 
     stdout = _run(
-        "asr_craft_tpu.cli.decode",
+        "asr_craft.cli.decode",
         "--synthetic_utts", "10", "--synthetic_noise", "0.3",
         "--crf_label_size", "6",
         "--weight_file", os.path.join(out_dir, "weights.final.dat"),
@@ -54,9 +54,9 @@ def test_cli_resume(tmp_path):
     common = ["--synthetic_utts", "16", "--crf_label_size", "4",
               "--crf_lr", "0.5", "--batch_size", "8",
               "--bucket_sizes", "256", "--out_dir", out_dir]
-    _run("asr_craft_tpu.cli.train", *common, "--crf_epochs", "1")
+    _run("asr_craft.cli.train", *common, "--crf_epochs", "1")
     # resume for 2 more epochs
-    stdout = _run("asr_craft_tpu.cli.train", *common, "--crf_epochs", "3",
+    stdout = _run("asr_craft.cli.train", *common, "--crf_epochs", "3",
                   "--resume")
     recs = [json.loads(l) for l in stdout.splitlines() if l.startswith("{")]
     assert any(r["kind"] == "resume" and r["epoch"] == 1 for r in recs), recs
@@ -70,7 +70,7 @@ def test_cli_sparse_featuremap(tmp_path):
     weak #1 / missing #6)."""
     out_dir = str(tmp_path / "run")
     stdout = _run(
-        "asr_craft_tpu.cli.train",
+        "asr_craft.cli.train",
         "--synthetic_utts", "24", "--synthetic_noise", "0.3",
         "--crf_label_size", "5", "--crf_epochs", "3", "--crf_lr", "1.0",
         "--crf_featuremap", "sparse",
@@ -81,7 +81,7 @@ def test_cli_sparse_featuremap(tmp_path):
     assert evals and evals[-1]["frame_accuracy"] > 0.85, evals
 
     stdout = _run(
-        "asr_craft_tpu.cli.decode",
+        "asr_craft.cli.decode",
         "--synthetic_utts", "10", "--synthetic_noise", "0.3",
         "--crf_label_size", "5", "--crf_featuremap", "sparse",
         "--weight_file", os.path.join(out_dir, "weights.final.dat"),
@@ -94,7 +94,7 @@ def test_cli_sparse_featuremap(tmp_path):
 def test_cli_sparse_file_input(tmp_path):
     """Training from a genuinely sparse on-disk corpus (data.sparse
     container standing in for QuickNet sparse streams)."""
-    from asr_craft_tpu import data as d
+    from asr_craft import data as d
     scfg = d.SyntheticConfig(num_labels=4, feat_dim=4, noise=0.3, seed=0)
     feats, labels, _ = d.generate_corpus(scfg, 20)
     utts = [d.sparsify_frames(f, 4) for f in feats]
@@ -103,7 +103,7 @@ def test_cli_sparse_file_input(tmp_path):
 
     out_dir = str(tmp_path / "run")
     stdout = _run(
-        "asr_craft_tpu.cli.train",
+        "asr_craft.cli.train",
         "--ftr1_file", path, "--crf_featuremap", "sparse",
         "--crf_label_size", "4", "--crf_epochs", "3", "--crf_lr", "1.0",
         "--batch_size", "8", "--bucket_sizes", "256",

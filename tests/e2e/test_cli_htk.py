@@ -6,7 +6,7 @@ import sys
 
 import numpy as np
 
-from asr_craft_tpu import data
+from asr_craft import data
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -43,7 +43,7 @@ def test_cli_train_htk_corpus(tmp_path):
     phn.write_text("\n".join(names))
 
     out = subprocess.run(
-        [sys.executable, "-m", "asr_craft_tpu.cli.train",
+        [sys.executable, "-m", "asr_craft.cli.train",
          "--htk_scp", str(scp), "--label_mlf", str(mlf_path),
          "--phone_names", str(phn),
          "--crf_label_size", str(L), "--crf_epochs", "3", "--crf_lr", "1.0",

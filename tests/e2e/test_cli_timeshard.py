@@ -18,7 +18,7 @@ def _run(*args):
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
                         + " --xla_force_host_platform_device_count=8").strip()
     out = subprocess.run(
-        [sys.executable, "-m", "asr_craft_tpu.cli.decode", *args,
+        [sys.executable, "-m", "asr_craft.cli.decode", *args,
          "--platform", "cpu"],
         cwd=REPO, capture_output=True, text=True, timeout=600, env=env)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -30,7 +30,7 @@ def _train_weights(tmp_path):
     env["JAX_PLATFORMS"] = "cpu"
     out_dir = str(tmp_path / "run")
     out = subprocess.run(
-        [sys.executable, "-m", "asr_craft_tpu.cli.train",
+        [sys.executable, "-m", "asr_craft.cli.train",
          "--synthetic_utts", "24", "--synthetic_noise", "0.3",
          "--crf_label_size", "6", "--crf_epochs", "2", "--crf_lr", "1.0",
          "--batch_size", "8", "--bucket_sizes", "256",

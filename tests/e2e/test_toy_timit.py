@@ -3,11 +3,11 @@ separable "toy TIMIT" must train to near-zero PER in a few epochs."""
 import numpy as np
 import pytest
 
-from asr_craft_tpu import data
-from asr_craft_tpu.decode.scorer import ErrorRateScorer, score_batch
-from asr_craft_tpu.models.crf import CrfConfig
-from asr_craft_tpu.train import TrainConfig, Trainer
-from asr_craft_tpu.utils.logging import MetricsLogger
+from asr_craft import data
+from asr_craft.decode.scorer import ErrorRateScorer, score_batch
+from asr_craft.models.crf import CrfConfig
+from asr_craft.train import TrainConfig, Trainer
+from asr_craft.utils.logging import MetricsLogger
 
 
 def _toy_corpus(L=6, n=40, noise=0.3, seed=0):
@@ -86,7 +86,7 @@ def test_frame_dep_transitions_toy():
 def test_checkpoint_resume(tmp_path):
     """Kill-and-resume continuity (SURVEY.md §5 failure detection): restored
     trainer continues from identical state."""
-    from asr_craft_tpu.train import load_checkpoint, save_checkpoint
+    from asr_craft.train import load_checkpoint, save_checkpoint
     L = 4
     feats, labels, _ = _toy_corpus(L=L, n=12, seed=4)
     lcfg = data.LoaderConfig(batch_size=4, buckets=(64,), seed=0)
@@ -114,7 +114,7 @@ def test_sparse_featuremap_e2e():
     CRF_StdSparseFeatureMap)."""
     import jax
     import jax.numpy as jnp
-    from asr_craft_tpu.models.crf import crf_loss
+    from asr_craft.models.crf import crf_loss
     rng = np.random.default_rng(0)
     L, D, K, B, T = 4, 12, 3, 3, 10
     cfg = CrfConfig(num_labels=L, feat_dim=D, featuremap="sparse")

@@ -8,8 +8,8 @@ import sys
 
 import numpy as np
 
-from asr_craft_tpu.data import PFile, WordCorpusConfig, write_pfile
-from asr_craft_tpu.data.synthetic import generate_word_corpus
+from asr_craft.data import PFile, WordCorpusConfig, write_pfile
+from asr_craft.data.synthetic import generate_word_corpus
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -49,7 +49,7 @@ def _wer(stdout):
 def test_cli_word_decode(tmp_path):
     num_phones = _setup_corpus(tmp_path)
     out_dir = str(tmp_path / "run")
-    _run("asr_craft_tpu.cli.train",
+    _run("asr_craft.cli.train",
          "--ftr1_file", str(tmp_path / "train.pf"),
          "--crf_label_size", str(num_phones),
          "--crf_epochs", "6", "--crf_lr", "1.0",
@@ -57,7 +57,7 @@ def test_cli_word_decode(tmp_path):
          "--out_dir", out_dir)
     weight = os.path.join(out_dir, "weights.final.dat")
 
-    common = ["asr_craft_tpu.cli.decode",
+    common = ["asr_craft.cli.decode",
               "--ftr1_file", str(tmp_path / "test.pf"),
               "--crf_label_size", str(num_phones),
               "--weight_file", weight,
@@ -103,11 +103,11 @@ def test_cli_word_decode(tmp_path):
 def test_cli_word_decode_with_lm(tmp_path):
     """An LM FST biased toward the reference transcripts must not hurt WER;
     --lm_weight 0 must reproduce the no-LM result."""
-    from asr_craft_tpu.decode import fst as F
+    from asr_craft.decode import fst as F
 
     num_phones = _setup_corpus(tmp_path)
     out_dir = str(tmp_path / "run")
-    _run("asr_craft_tpu.cli.train",
+    _run("asr_craft.cli.train",
          "--ftr1_file", str(tmp_path / "train.pf"),
          "--crf_label_size", str(num_phones),
          "--crf_epochs", "6", "--crf_lr", "1.0",
@@ -122,7 +122,7 @@ def test_cli_word_decode_with_lm(tmp_path):
                          np.log(np.full(W, 0.5)))
     F.write_fst_text(lm, tmp_path / "lm.fst.txt")
 
-    common = ["asr_craft_tpu.cli.decode",
+    common = ["asr_craft.cli.decode",
               "--ftr1_file", str(tmp_path / "test.pf"),
               "--crf_label_size", str(num_phones),
               "--weight_file", weight,
@@ -141,14 +141,14 @@ def test_cli_word_decode_dynamic(tmp_path):
     lexicon/LM-composition decoder (r4 WSJ-scale path) with a pruned
     BACKOFF bigram LM estimated from the training transcripts must match
     the offline composed path's transcripts on this easy corpus."""
-    from asr_craft_tpu.data.synthetic import WordCorpusConfig as WCC
-    from asr_craft_tpu.decode import fst as F
+    from asr_craft.data.synthetic import WordCorpusConfig as WCC
+    from asr_craft.decode import fst as F
 
     cfg = WCC(num_words=6, noise=0.2, seed=7)
     feats, labels, word_seqs, lexicon, words = generate_word_corpus(cfg, 80)
     num_phones = _setup_corpus(tmp_path)
     out_dir = str(tmp_path / "run")
-    _run("asr_craft_tpu.cli.train",
+    _run("asr_craft.cli.train",
          "--ftr1_file", str(tmp_path / "train.pf"),
          "--crf_label_size", str(num_phones),
          "--crf_epochs", "6", "--crf_lr", "1.0",
@@ -158,7 +158,7 @@ def test_cli_word_decode_dynamic(tmp_path):
     lm = F.estimate_backoff_bigram(word_seqs[:70], words)
     F.write_fst_text(lm, tmp_path / "lm.fst.txt")
 
-    common = ["asr_craft_tpu.cli.decode",
+    common = ["asr_craft.cli.decode",
               "--ftr1_file", str(tmp_path / "test.pf"),
               "--crf_label_size", str(num_phones),
               "--weight_file", weight,

@@ -6,7 +6,7 @@ ONLY when the potential conventions deliberately change.
 """
 import numpy as np
 
-from asr_craft_tpu.ops import oracle
+from asr_craft.ops import oracle
 
 
 def main():

@@ -4,7 +4,7 @@ Everything else in the framework is then held to the oracle."""
 import numpy as np
 import pytest
 
-from asr_craft_tpu.ops import oracle
+from asr_craft.ops import oracle
 from tests.conftest import random_problem
 
 

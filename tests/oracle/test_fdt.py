@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asr_craft_tpu.models.feature_map import FeatureMapConfig, dense_potentials
-from asr_craft_tpu.models.topology import Topology
-from asr_craft_tpu.ops import fdt, fwdbwd
-from asr_craft_tpu.ops.semiring import NEG_INF
-from asr_craft_tpu.ops.viterbi import viterbi_batch
+from asr_craft.models.feature_map import FeatureMapConfig, dense_potentials
+from asr_craft.models.topology import Topology
+from asr_craft.ops import fdt, fwdbwd
+from asr_craft.ops.semiring import NEG_INF
+from asr_craft.ops.viterbi import viterbi_batch
 
 TOL = dict(rtol=5e-4, atol=5e-5)
 
@@ -158,9 +158,9 @@ def test_padding_inert(rng):
 def test_fdt_posteriors_match_materialized(rng, ns):
     """fdt_posteriors (factored scans, no (B,T,L',L') tensor) == the
     materialized fwdbwd.posteriors_batch on small shapes."""
-    from asr_craft_tpu.models.crf import (CrfConfig, apply_boundaries,
-                                          frame_posteriors, potentials)
-    from asr_craft_tpu.ops import fwdbwd
+    from asr_craft.models.crf import (CrfConfig, apply_boundaries,
+                                      frame_posteriors, potentials)
+    from asr_craft.ops import fwdbwd
 
     P, D = 4, 7
     cfg = CrfConfig(num_labels=P, feat_dim=D, num_states=ns,

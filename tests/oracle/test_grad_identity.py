@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from asr_craft_tpu import ops
-from asr_craft_tpu.ops import oracle
+from asr_craft import ops
+from asr_craft.ops import oracle
 from tests.conftest import random_problem
 
 

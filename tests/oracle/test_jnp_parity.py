@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asr_craft_tpu import ops
-from asr_craft_tpu.ops import oracle
+from asr_craft import ops
+from asr_craft.ops import oracle
 from tests.conftest import random_problem
 
 # fp32 scan vs fp64 loop accumulate in different orders; ~1e-4 relative is

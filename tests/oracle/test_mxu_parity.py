@@ -1,12 +1,12 @@
-"""MXU-formulation forward-backward vs the generic scan and the oracle:
+"""Matmul-formulation forward-backward vs the generic scan and the oracle:
 values, posteriors, and custom-VJP gradients (fp32 parity bar)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asr_craft_tpu import ops
-from asr_craft_tpu.ops import mxu, oracle
+from asr_craft import ops
+from asr_craft.ops import mxu, oracle
 
 TOL = dict(rtol=5e-4, atol=5e-5)
 
@@ -42,7 +42,7 @@ def test_forward_mxu_large_potentials(rng):
 
 def test_forward_mxu_masked_trans(rng):
     """Topology NEG_INF masks flow through the exp formulation."""
-    from asr_craft_tpu.models.topology import Topology
+    from asr_craft.models.topology import Topology
     topo = Topology(num_labels=3, num_states=2)
     state = rng.normal(size=(2, 12, 6)).astype(np.float32)
     trans = (rng.normal(size=(6, 6)).astype(np.float32)
@@ -85,7 +85,7 @@ def test_custom_vjp_matches_expected_counts(rng):
 
 
 def test_custom_vjp_matches_generic_grad(rng):
-    """MXU custom VJP vs autodiff-through-scan on the same loss."""
+    """Matmul custom VJP vs autodiff-through-scan on the same loss."""
     B, T, L = 2, 10, 4
     state, trans, lengths = _batch(rng, B, T, L)
     s, t, n = jnp.asarray(state), jnp.asarray(trans), jnp.asarray(lengths)

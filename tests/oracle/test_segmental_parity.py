@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asr_craft_tpu import ops
-from asr_craft_tpu.ops import oracle
+from asr_craft import ops
+from asr_craft.ops import oracle
 
 TOL = dict(rtol=5e-4, atol=5e-5)
 

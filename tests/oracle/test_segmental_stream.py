@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asr_craft_tpu.ops.segmental import segmental_forward_batch
-from asr_craft_tpu.ops.segmental_stream import (seg_backward_stream,
-                                                seg_forward_stream,
-                                                seg_log_partition_stream,
-                                                _invd)
+from asr_craft.ops.segmental import segmental_forward_batch
+from asr_craft.ops.segmental_stream import (seg_backward_stream,
+                                            seg_forward_stream,
+                                            seg_log_partition_stream,
+                                            _invd)
 
 
 def _dense_logZ(frame, bias, trans, lengths, mean_pool):

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from asr_craft_tpu import data
+from asr_craft import data
 
 
 def _corpus(rng, n=7, D=5):

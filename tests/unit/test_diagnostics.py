@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asr_craft_tpu.parallel import make_mesh, replicate_tree
-from asr_craft_tpu.utils import diagnostics
+from asr_craft.parallel import make_mesh, replicate_tree
+from asr_craft.utils import diagnostics
 
 
 def test_assert_replicated_passes_for_replicated():

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asr_craft_tpu.models.feature_map import (FeatureMapConfig,
-                                              dense_potentials,
-                                              sparse_potentials)
+from asr_craft.models.feature_map import (FeatureMapConfig,
+                                          dense_potentials,
+                                          sparse_potentials)
 
 
 def test_param_shapes_and_count():

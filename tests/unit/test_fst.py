@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from asr_craft_tpu.decode import fst as F
-from asr_craft_tpu.ops import oracle
+from asr_craft.decode import fst as F
+from asr_craft.ops import oracle
 
 
 def test_linear_acceptor_shortest_path():
@@ -72,7 +72,7 @@ def test_collapser_multiframe_phones():
 def test_word_decode_nstate():
     """Word decode over an expanded n-state topology: lattice input labels
     are expanded states, output labels are phones."""
-    from asr_craft_tpu.models.topology import Topology
+    from asr_craft.models.topology import Topology
     topo = Topology(3, 2)  # 3 phones x 2 states
     trans = topo.transition_penalty().astype(np.float32)
     # expanded-state path 0 1 1 2 3 4 5 5 = phones a a a b b c c c
@@ -173,7 +173,7 @@ def test_nbest_paths(rng):
     assert ws == sorted(ws)
     assert len({tuple(p) for p, _, _ in nbest}) == 5
     # exhaustive check against enumerating all L**T paths
-    from asr_craft_tpu.ops import oracle
+    from asr_craft.ops import oracle
     import itertools
     scores = sorted(
         -oracle.path_score_np(state, trans, list(p), T)

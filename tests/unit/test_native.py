@@ -2,11 +2,11 @@
 import numpy as np
 import pytest
 
-from asr_craft_tpu import data
-from asr_craft_tpu.decode import fst as F
+from asr_craft import data
+from asr_craft.decode import fst as F
 
 def _native_fst():
-    from asr_craft_tpu.decode import fst_native
+    from asr_craft.decode import fst_native
     if not fst_native.available():
         pytest.skip("native fst backend unavailable (no toolchain)")
     return fst_native
@@ -82,7 +82,7 @@ def test_native_word_decode_end_to_end(rng):
 
 
 def test_native_pfile_matches_python(tmp_path, rng):
-    from asr_craft_tpu.data import pfile_native
+    from asr_craft.data import pfile_native
     if not pfile_native.available():
         pytest.skip("native pfile reader unavailable")
     feats = [rng.normal(size=(int(rng.integers(2, 20)), 7)).astype(np.float32)

@@ -6,7 +6,7 @@ import pytest
 hypothesis = pytest.importorskip("hypothesis")
 from hypothesis import given, settings, strategies as st
 
-from asr_craft_tpu import ops
+from asr_craft import ops
 
 _settings = settings(max_examples=25, deadline=None)
 

@@ -1,87 +1,53 @@
-"""Roofline traffic model sanity (VERDICT r1 Next #3).
-
-The model is arithmetic, not hardware — these tests pin its invariants:
-positive counts, linear scaling in batch, padding awareness, and a summary
-whose SOL can never exceed measured time by construction of max(mem, mxu).
-"""
+"""Roofline shares (utils/roofline.py): the peaks table keyed by device
+kind refuses kinds it does not list, and the shape-derived work counts
+behave like counts."""
 import math
 
-from asr_craft_tpu.utils import roofline as rl
+import pytest
+
+from asr_craft.utils import roofline as rl
+
+H100 = "NVIDIA H100 80GB HBM3"
 
 
-def test_train_phases_positive_and_ordered():
-    phases = rl.train_step_phases(B=64, T=512, L=144, D=144)
-    names = [p.name for p in phases]
-    assert names == ["featuremap", "dual_forward", "dual_backward_grad",
-                     "featuremap_bwd", "optimizer"]
-    for p in phases:
-        assert p.bytes > 0 and p.flops > 0
-        assert p.sol_s() > 0
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", "",
+                                  "NVIDIA H100 PCIe"])
+def test_unknown_kind_gives_no_share(kind):
+    assert rl.peaks_for(kind) is None
+    assert rl.share(rl.Work(1e9, 1e9), 1e-3, kind) is None
 
 
-def test_traffic_scales_linearly_in_batch():
-    lo = sum(p.bytes for p in rl.train_step_phases(8, 512, 144, 144))
-    hi = sum(p.bytes for p in rl.train_step_phases(16, 512, 144, 144))
-    assert math.isclose(hi / lo, 2.0, rel_tol=0.05)
+def test_h100_peaks_are_the_data_sheet():
+    pk = rl.peaks_for(H100)
+    assert (pk.hbm_gbps, pk.fp32_tflops, pk.tf32_tflops, pk.bf16_tflops) \
+        == (3350.0, 67.0, 495.0, 989.0)
+    assert "data sheet" in pk.source
 
 
-def test_padding_reflected_in_kernel_phases():
-    # L=144 pads to 256 lanes: the kernel phases must count padded bytes.
-    ph = {p.name: p for p in rl.train_step_phases(64, 512, 144, 144)}
-    tblp = 512 * 64 * 256 * 4
-    assert ph["dual_forward"].bytes > 3 * tblp  # state in + 2 lattices out
-    # unpadded XLA phase smaller per-tensor
-    assert ph["featuremap_bwd"].bytes < 2 * tblp
+@pytest.mark.parametrize("flops,byts,bound", [(1e12, 1e6, "compute"),
+                                              (1e6, 1e10, "memory")])
+def test_share_picks_the_binding_bound(flops, byts, bound):
+    s = rl.share(rl.Work(flops, byts), 0.5, H100)
+    assert s["bound"] == bound
+    floor = max(flops / 67e12, byts / 3350e9)
+    assert math.isclose(s["floor_ms"], floor * 1e3)
+    assert math.isclose(s["share"], floor / 0.5)
 
 
-def test_flagship_bounds_per_phase():
-    # At the flagship shape the streaming phases are memory-bound while the
-    # fused beta+grad kernel (2x in-kernel matmul work) is fp32-MXU-bound.
-    for p in rl.train_step_phases(64, 512, 144, 144):
-        bw_s = p.bytes / (rl.V5E.hbm_gbps * 1e9)
-        mxu_s = p.flops / (rl.V5E.fp32_tflops * 1e12)
-        assert p.sol_s() >= bw_s * 0.999
-        if p.name in ("dual_forward", "dual_backward_grad"):
-            assert mxu_s > bw_s
-        elif p.name in ("featuremap", "featuremap_bwd"):
-            assert bw_s > mxu_s
+def test_share_precision_selects_the_peak():
+    w = rl.Work(1e13, 1.0)
+    f32 = rl.share(w, 1.0, H100, "fp32")["floor_ms"]
+    bf16 = rl.share(w, 1.0, H100, "bf16")["floor_ms"]
+    assert math.isclose(f32 / bf16, 989.0 / 67.0)
 
 
-def test_summarize_fields():
-    phases = rl.decode_phases(64, 512, 144, 144, num_states=3)
-    s = rl.summarize(phases, measured_s=2.4e-3, measured_bw_gbps=600.0)
-    assert s["sol_ms"] > 0
-    assert s["pct_of_sol"] == round(100 * s["sol_ms"] / s["measured_ms"], 1)
-    assert s["pct_of_achievable_sol"] >= s["pct_of_sol"]
-    assert set(s["phases"]) == {"featuremap", "viterbi_forward",
-                                "viterbi_traceback"}
-
-def test_scrf_tile_floor_structure():
-    """scrf_tile_floor (VERDICT r4 next #1): positive per-kernel floors,
-    train = fwd+bwd+grad, decode = vit+tb, VPU-elems consistent with the
-    phase model's inventories."""
-    tile = rl.scrf_tile_floor(128, 512, 48, 16, vpu_geps=1500.0)
-    k = tile["kernels_ms"]
-    for name in ("fwd", "bwd", "grad", "vit", "tb"):
-        assert k[name] > 0, name
-    assert math.isclose(tile["train_floor_ms"],
-                        k["fwd"] + k["bwd"] + k["grad"], abs_tol=2e-3)
-    assert math.isclose(tile["decode_floor_ms"], k["vit"] + k["tb"],
-                        abs_tol=2e-3)
-    # grad does the most window passes -> largest kernel floor
-    assert k["grad"] > k["fwd"] >= k["bwd"]
-
-
-def test_scrf_phases_scale_with_batch_lanes():
-    """Transposed layout: batch pads to full 128 lanes, so VPU elems are
-    equal at B=64 and B=128 (the r5 finding that B=64 wastes half the
-    lanes) and double at B=256."""
-    kern = ("scrf_forward", "scrf_backward", "scrf_grad")
-
-    def v(B):
-        return sum(p.vpu_elems for p in
-                   rl.scrf_train_phases(B, 512, 48, 144, 16)
-                   if p.name in kern)
-
-    assert v(64) == v(128)
-    assert math.isclose(v(256) / v(128), 2.0, rel_tol=1e-6)
+@pytest.mark.parametrize("fn,args", [
+    (rl.fdt_train_work, (512, 48, 3, 144)),
+    (rl.fdt_decode_work, (512, 48, 3, 144)),
+    (rl.scrf_train_work, (512, 48, 144, 16)),
+    (rl.scrf_decode_work, (512, 48, 144, 16))])
+def test_work_positive_and_linear_in_batch(fn, args):
+    lo, hi = fn(32, *args), fn(64, *args)
+    assert lo.flops > 0 and lo.bytes > 0
+    assert math.isclose(hi.flops / lo.flops, 2.0, rel_tol=1e-9)
+    assert math.isclose(hi.bytes / lo.bytes, 2.0, rel_tol=0.01)

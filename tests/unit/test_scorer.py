@@ -1,7 +1,7 @@
 """Edit distance / PER scoring / TIMIT folding."""
 import numpy as np
 
-from asr_craft_tpu.decode import scorer as S
+from asr_craft.decode import scorer as S
 
 
 def test_edit_distance_basic():

@@ -6,13 +6,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from asr_craft_tpu import data
-from asr_craft_tpu.data.sparse import (densify, read_sparse_file,
-                                       sparsify_frames, write_sparse_file)
-from asr_craft_tpu.models.crf import CrfConfig, crf_loss, decode
-from asr_craft_tpu.models.feature_map import (FeatureMapConfig,
-                                              dense_potentials,
-                                              sparse_potentials)
+from asr_craft import data
+from asr_craft.data.sparse import (densify, read_sparse_file,
+                                   sparsify_frames, write_sparse_file)
+from asr_craft.models.crf import CrfConfig, crf_loss, decode
+from asr_craft.models.feature_map import (FeatureMapConfig,
+                                          dense_potentials,
+                                          sparse_potentials)
 
 
 def test_sparsify_roundtrip_exact(rng):

@@ -1,7 +1,7 @@
 """N-state topology masks (the ``CRF_StdNStateNode`` replacement)."""
 import numpy as np
 
-from asr_craft_tpu.models.topology import Topology
+from asr_craft.models.topology import Topology
 
 
 def test_monophone_mask_all_true():

@@ -4,7 +4,7 @@ def test_prefetch_abandoned_epoch_releases_worker():
     thread (ADVICE r4 low: it used to block forever on q.put)."""
     import threading
     import time
-    from asr_craft_tpu.train.trainer import _prefetch_device
+    from asr_craft.train.trainer import _prefetch_device
 
     n_before = threading.active_count()
     gen = _prefetch_device(iter(range(100)), lambda x: x, depth=2)

@@ -3,10 +3,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from asr_craft_tpu import data
-from asr_craft_tpu.models.crf import CrfConfig
-from asr_craft_tpu.train import TrainConfig, Trainer
-from asr_craft_tpu.utils.logging import MetricsLogger
+from asr_craft import data
+from asr_craft.models.crf import CrfConfig
+from asr_craft.train import TrainConfig, Trainer
+from asr_craft.utils.logging import MetricsLogger
 
 
 def _setup(seed=0, n=16):
@@ -35,7 +35,7 @@ def test_accumulation_trains():
 
 def test_accumulation_exact_grad_sum():
     """grad_step really accumulates: two micro-batches == sum of grads."""
-    from asr_craft_tpu.train.trainer import make_train_step
+    from asr_craft.train.trainer import make_train_step
     cfg = CrfConfig(num_labels=3, feat_dim=3)
     tc = TrainConfig(lr=1.0)
     step, opt = make_train_step(cfg, tc)
@@ -54,7 +54,7 @@ def test_accumulation_exact_grad_sum():
     acc, _ = step.grad_step(params, zero, b1)
     acc, _ = step.grad_step(params, acc, b2)
 
-    from asr_craft_tpu.models.crf import crf_loss
+    from asr_craft.models.crf import crf_loss
     g1 = jax.grad(lambda p: crf_loss(cfg, p, b1["feats"], b1["labels"],
                                      b1["lengths"])[0])(params)
     g2 = jax.grad(lambda p: crf_loss(cfg, p, b2["feats"], b2["labels"],
